@@ -1,6 +1,8 @@
 """``python -m epik_tpu`` entry point (the reference's ``epik.py`` surface)."""
 
-from .cli.main import epik
+import sys
+
+from .cli.main import main
 
 if __name__ == "__main__":
-    epik()
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Sequence alphabets and k-mer codecs.
 
-TPU-native re-design of the reference's compile-time state alphabets
+Re-design of the reference's compile-time state alphabets
 (reference: epik/CMakeLists.txt:70-76,122-128 links two binaries against
 ``i2l::dna`` / ``i2l::aa``; the state alphabet is a template parameter of the
 i2l phylo-k-mer core).  Here the alphabet is a runtime object: a single engine

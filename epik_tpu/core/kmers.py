@@ -5,7 +5,7 @@ Replaces the reference's per-read, per-window serial iterator
 (reference: epik/src/epik/place.cpp:294-314).  The reference walks windows one
 at a time inside each OpenMP worker; here a whole read (and, one level up, a
 whole batch) is tokenized in flat numpy ops so the result can be shipped to
-the TPU as dense key streams (SURVEY.md section 5.7: flatten all windows of a
+the device as dense key streams (SURVEY.md section 5.7: flatten all windows of a
 batch; the accumulate becomes a segment reduction independent of read length).
 
 Semantics reproduced exactly (see SURVEY.md quirk ledger):

@@ -5,7 +5,7 @@ algorithm (reference: epik/src/epik/place.cpp) in plain Python/NumPy, kept
 deliberately close to the scalar C++ semantics **including float32
 accumulation and the quirk ledger Q1-Q11 of SURVEY.md**.  It is the
 second implementation for differential testing (the pattern of
-reference: scripts/ppdiff.py:235-255) and the golden oracle for the TPU
+reference: scripts/ppdiff.py:235-255) and the golden oracle for the device
 engine; it is NOT the fast path.
 
 Numeric model:

@@ -4,8 +4,8 @@ Re-provides the reference's ``i2l::phylo_kmer_db`` + ``i2l::load`` contract
 (reference: epik/src/epik/main.cpp:277 ``i2l::load(db_file, mu, omega,
 max_entries)``; epik/src/epik/place.cpp:278-316 ``db.search(key)``).
 
-TPU-first re-design
--------------------
+Device-first re-design
+----------------------
 The reference stores a Boost-serialized hash map of posting lists and queries
 it key-by-key from OpenMP threads.  Here the database is a set of **flat,
 device-shippable arrays**:
@@ -15,8 +15,8 @@ device-shippable arrays**:
 * ``branches`` uint32[P]  -- post-order branch ids (jplace edge_num)
 * ``scores``   float32[P] -- log10 P(kmer | branch)
 
-so the whole DB is a gather target in HBM; lookup happens on-device through a
-hash table built from ``keys`` (see epik_tpu/ops/hashtable.py).
+so the whole DB is a gather target in device memory; lookup happens on-device
+through a hash table built from ``keys`` (see epik_tpu/ops/hashtable.py).
 
 File format (``.eptk``, "EPIK-TPU phylo-k-mer database v1")
 -----------------------------------------------------------

@@ -1,7 +1,7 @@
 """ctypes bindings for the native host library (native/epik_host.cpp).
 
-Loads ``libepik_host.so``, building it on demand with cmake (or a direct
-g++ fallback) the first time.  Every native entry point has a pure-Python
+Loads ``libepik_host.so``, compiling it into ``build/`` with the host C++
+compiler the first time.  Every native entry point has a pure-Python
 equivalent -- the bindings are an acceleration, not a requirement:
 
 * :func:`native_tokenize_batch`  <->  core.kmers.tokenize_batch
@@ -14,6 +14,8 @@ equivalent -- the bindings are an acceleration, not a requirement:
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 import threading
@@ -34,74 +36,85 @@ __all__ = [
 ]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_REPO, "native", "epik_host.cpp")
 _BUILD_DIR = os.path.join(_REPO, "build")
-_LIB_PATHS = [
-    os.path.join(_BUILD_DIR, "libepik_host.so"),
-    os.path.join(_REPO, "native", "libepik_host.so"),
-]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_build_error = ""
 
 
-def _build() -> str | None:
-    src_dir = os.path.join(_REPO, "native")
-    try:
-        subprocess.run(
-            ["cmake", "-S", src_dir, "-B", _BUILD_DIR, "-DCMAKE_BUILD_TYPE=Release"],
-            check=True, capture_output=True, timeout=300,
-        )
-        subprocess.run(
-            ["cmake", "--build", _BUILD_DIR, "--parallel"],
-            check=True, capture_output=True, timeout=600,
-        )
-        return _LIB_PATHS[0]
-    except Exception:
-        pass
-    # direct g++ fallback
-    out = _LIB_PATHS[1]
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
-             os.path.join(src_dir, "epik_host.cpp"), "-o", out],
-            check=True, capture_output=True, timeout=600,
-        )
-        return out
-    except Exception:
-        return None
+def _lib_path() -> str:
+    """Where the library built from the current source lives: the name
+    carries a hash of ``epik_host.cpp``, so an edited source builds anew
+    and a stale library is never loaded."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(_BUILD_DIR, f"libepik_host-{digest}.so")
 
 
-def load_native(build_if_missing: bool = True):
-    """The loaded CDLL or None."""
+def _build(out: str) -> bool:
+    """Compile ``out`` with the host C++ compiler: ``$CXX``, then g++, then
+    c++, with OpenMP (the native placer's ``-j N`` loop) where the
+    compiler supports it, else without (that loop then runs on one
+    thread).  A file lock serializes processes that build at once (test
+    workers); the library appears atomically, fully written or not at
+    all.  A failure's compiler output is kept for
+    :func:`native_build_error`."""
+    global _build_error
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    compilers = list(dict.fromkeys(
+        c for c in (os.environ.get("CXX"), "g++", "c++") if c))
+    with open(os.path.join(_BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return True
+        tmp = f"{out}.{os.getpid()}.tmp"
+        errors = []
+        for openmp in (["-fopenmp"], []):
+            for cxx in compilers:
+                cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", *openmp,
+                       _SRC, "-o", tmp]
+                try:
+                    subprocess.run(cmd, check=True, capture_output=True,
+                                   text=True, timeout=600)
+                except subprocess.CalledProcessError as e:
+                    errors.append(f"{' '.join(cmd)}: {e.stderr.strip()[-1000:]}")
+                    continue
+                except (OSError, subprocess.SubprocessError) as e:
+                    errors.append(f"{' '.join(cmd)}: {e}")
+                    continue
+                os.replace(tmp, out)
+                return True
+        _build_error = "\n".join(errors)
+        return False
+
+
+def load_native():
+    """The loaded CDLL, built from ``native/epik_host.cpp`` on first use,
+    or None when no compiler can build it."""
     global _lib, _tried
     with _lock:
-        if _lib is not None or (_tried and not build_if_missing):
+        if _lib is not None or _tried:
             return _lib
-        path = next((p for p in _LIB_PATHS if os.path.exists(p)), None)
-        if path is None and build_if_missing and not _tried:
-            path = _build()
         _tried = True
-        if path is None:
+        path = _lib_path()
+        if not os.path.exists(path) and not _build(path):
             return None
         lib = ctypes.CDLL(path)
-        # stale pre-built library from an older revision: rebuild once if
-        # allowed; otherwise reject it so callers fall back to Python
-        # rather than crash on a missing symbol
-        if not hasattr(lib, "eh_place_scalar_mt"):
-            path = _build() if build_if_missing else None
-            if path is None:
-                return None
-            lib = ctypes.CDLL(path)
-            if not hasattr(lib, "eh_place_scalar_mt"):
-                return None
         _declare(lib)
         _lib = lib
         return _lib
 
 
 def native_available() -> bool:
-    return load_native(build_if_missing=False) is not None
+    return load_native() is not None
+
+
+def native_build_error() -> str:
+    """Why the last build failed ("" when it did not fail)."""
+    return _build_error
 
 
 c_i64p = ctypes.POINTER(ctypes.c_int64)

@@ -2,13 +2,14 @@
 
 The reference has no distribution layer at all -- one process, OpenMP
 shared-memory threads (reference: epik/src/epik/place.cpp:218-229;
-SURVEY.md "Parallelism & communication inventory").  The TPU-native design
-uses a 2D ``jax.sharding.Mesh``:
+SURVEY.md "Parallelism & communication inventory").  This design uses a
+2D ``jax.sharding.Mesh``:
 
 * axis ``"data"``  -- reads are data-parallel (the analog of the reference's
   read-level OpenMP parallel-for);
 * axis ``"model"`` -- the phylo-k-mer database is hash-sharded when it does
-  not fit (or is not wanted) replicated in HBM; per-branch partial score
+  not fit (or is not wanted) replicated in device memory; per-branch
+  partial score
   matrices merge with ``psum`` over this axis (BASELINE.json north star).
 
 Multi-host: call :func:`init_distributed` first (jax.distributed), then build
@@ -110,7 +111,7 @@ def make_mesh(
     """Build a ('data', 'model') mesh.
 
     Defaults: all visible devices on the data axis, model unsharded
-    (replicated DB -- the fast path whenever the DB fits in HBM).
+    (replicated DB -- the fast path whenever the DB fits in device memory).
     """
     devices = devices if devices is not None else jax.devices()
     n_dev = len(devices)
@@ -129,27 +130,27 @@ def make_mesh(
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
-                     initialization_timeout: float | None = None) -> None:
-    """Multi-host initialization (green-field vs the reference; SURVEY.md
-    section 5.8).  Safe to call with no args under TPU auto-detection.
+                     initialization_timeout: float | None = None,
+                     local_device_ids: list[int] | None = None) -> None:
+    """Multi-process initialization (green-field vs the reference; SURVEY.md
+    section 5.8).  Nothing tells JAX of a cluster, so the coordinator
+    address (``host:port``, served by rank 0), the process count and this
+    process's rank are all required.
 
-    ``initialization_timeout`` bounds the coordinator barrier so a rank
-    that never starts surfaces an error instead of hanging forever (part
-    of the round-4 failure story; runtime stalls are covered by
+    ``local_device_ids`` binds this process to those local devices --
+    needed when several processes share one host, which otherwise would
+    each take every device.  ``initialization_timeout`` bounds the
+    coordinator barrier so a rank that never starts surfaces an error
+    instead of hanging forever (runtime stalls are covered by
     :class:`BatchWatchdog`)."""
     kw = {}
     if initialization_timeout is not None:
         kw["initialization_timeout"] = int(initialization_timeout)
-    try:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-            **kw,
-        )
-    except TypeError:  # older jax without the timeout kwarg
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
+    if local_device_ids is not None:
+        kw["local_device_ids"] = list(local_device_ids)
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+        **kw,
+    )

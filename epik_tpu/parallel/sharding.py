@@ -1,6 +1,6 @@
 """Multi-device placement: data-parallel reads x column-sharded database.
 
-TPU-native distribution (green-field vs the reference, which is a single
+Distribution (green-field vs the reference, which is a single
 OpenMP process -- SURVEY.md sections 2 and 5.8):
 
 * **data axis**: unique reads of a batch split into contiguous groups, one
@@ -12,7 +12,7 @@ OpenMP process -- SURVEY.md sections 2 and 5.8):
   stream is replicated over the model axis (it is tiny next to the plane),
   so the exact row-gather sums *and* the ambiguous first-hit are entirely
   local to each shard -- the only collectives are per-read scalars for the
-  LWR normalization (``psum``/``pmax`` over ICI) and an ``all_gather`` of
+  LWR normalization (``psum``/``pmax``) and an ``all_gather`` of
   K top-k candidates per read.  Communication volume per batch is
   O(R * K * n_model) floats, independent of tree size.  This is also what
   makes 10k+-taxa trees fit: per-shard plane bytes shrink linearly in the
@@ -58,11 +58,11 @@ from ..engine.placer import (
     _pack_outputs,
     _pack_outputs_slim,
     _pack_outputs_slim_totals,
+    _window_count_f32,
     accumulate_amb_firsthit,
     accumulate_exact,
-    accumulate_exact_dense,
     assemble_arrays,
-    dense_amb_from_rows,
+    device_memory_budgets,
     dense_sums_from_rows,
     dense_sums_shifted,
     _tokenize_core,
@@ -77,6 +77,7 @@ from ..engine.placer import (
 )
 from ..engine.types import PlacedCollection
 from ..io.db import PhyloKmerDB
+from ..ops.accumulate import segment_sums, segment_sums_packed, trash_branch
 from ..ops.hashtable import build_table
 from .mesh import DATA_AXIS, MODEL_AXIS
 
@@ -110,7 +111,7 @@ def shard_db_columns(db: PhyloKmerDB, n_model: int, num_branches: int,
     the per-shard width, a 128 multiple (aligned row gathers).  Absent
     (key, branch) cells are exactly 0.0; stored scores of exactly 0.0
     (P == 1) are nudged to a tiny normal negative float32 so presence stays
-    ``!= 0`` (TPUs flush subnormals).  The last plane row is the all-zero
+    ``!= 0`` (devices may flush subnormals).  The last plane row is the all-zero
     miss row.  One vectorized scatter builds all shards.
 
     ``shifted``: cells hold s - log10(eps) instead (> 0 present; the
@@ -140,10 +141,10 @@ def shard_tiles_columns(db: PhyloKmerDB, n_model: int, B: int,
     block [m*bwl, (m+1)*bwl), re-based to local ids, trash-padded to a
     common PT (the max per-shard local posting count).
 
-    Layout follows the single-chip round-4 rework: PACKED int32 cells
+    Layout follows the single-device engine: PACKED int32 cells
     ``(local_branch << 16) | q`` (q = shifted score on a 64000-step grid)
     whenever the per-shard branch block fits 15 bits -- halves the gather
-    bytes and runs the accumulate as exact bf16-digit MXU matmuls
+    bytes and makes the accumulate an exact int32 sum
     (engine/placer.py::PlacerConfig.tile_payload).  Per-shard blocks are
     B/n_model wide, so the gate virtually always holds; the f32
     interleaved-pair layout remains as fallback.
@@ -151,8 +152,6 @@ def shard_tiles_columns(db: PhyloKmerDB, n_model: int, B: int,
     Returns (tiles, bwl, PT, scale): tiles int32[n_model, n_keys+1, PT]
     with quantization ``scale`` when packed, or uint32[n_model, n_keys+1,
     2*PT] with scale == 0.0 (the f32 layout marker)."""
-    from ..ops.pallas.accumulate import trash_branch
-
     n_keys = db.num_kmers
     bwl = -(-B // (128 * n_model)) * 128
     lens = np.diff(db.row_off)
@@ -166,7 +165,7 @@ def shard_tiles_columns(db: PhyloKmerDB, n_model: int, B: int,
     max_cnt = max(int(counts.max()), 1)
     PT = -(-max_cnt // 8) * 8
     packed = trash_branch(bwl) < (1 << 15)
-    # two-level split (round 5, the sharded analog of the single-chip
+    # two-level split (the sharded analog of the single-device
     # build): per-shard posting counts have SMALLER means but similar
     # maxes, so single-level padding is even worse here.  Main plane at
     # the cost knee; overflow keys (ANY shard over PT_main) permuted to
@@ -427,7 +426,8 @@ def _sharded_dense_bytes_step(
 
     The host ships one packed uint8 buffer per batch (engine/placer.py::
     pack_reads); tokenization + direct-table row resolution run redundantly
-    on every model shard (cheap VPU work) against the replicated buffer,
+    on every model shard (cheap elementwise work) against the replicated
+    buffer,
     then each shard row-gathers only its own branch columns.
     """
 
@@ -435,11 +435,7 @@ def _sharded_dense_bytes_step(
         rows, lens = device_tokenize_packed(
             buf, direct, k=k, Lmax=Lmax, num_kmers=num_kmers
         )
-        f32 = jnp.float32
-        m_signed = lens - jnp.int32(k - 1)
-        m_f32 = jnp.where(
-            m_signed >= 0, m_signed.astype(f32), f32(float(_U64)) + m_signed.astype(f32)
-        )
+        m_f32 = _window_count_f32(lens, k)
         W = rows.shape[1]
         Wp = -(-W // 16) * 16  # chunked-gather width contract
         rows = jnp.pad(rows, ((0, 0), (0, Wp - W)), constant_values=num_kmers)
@@ -488,17 +484,13 @@ def _sharded_dense_paired_step(
     pair rows are the column-slices of the global pair rows, so the sums
     compose per column exactly as in the single-chip engine).  Slot rows
     resolve through the unified combo table (one element gather per slot,
-    engine/placer.py::device_tokenize_combo, round 4)."""
+    engine/placer.py::device_tokenize_combo)."""
 
     def block(plane, combo, buf, arows):
         rows, lens = device_tokenize_combo(
             buf, combo, k=k, Lmax=Lmax, num_kmers=num_kmers
         )
-        f32 = jnp.float32
-        m_signed = lens - jnp.int32(k - 1)
-        m_f32 = jnp.where(
-            m_signed >= 0, m_signed.astype(f32), f32(float(_U64)) + m_signed.astype(f32)
-        )
+        m_f32 = _window_count_f32(lens, k)
         Wp = rows.shape[1]
         Wpad = -(-Wp // 16) * 16
         rows = jnp.pad(rows, ((0, 0), (0, Wpad - Wp)), constant_values=num_kmers)
@@ -524,7 +516,7 @@ def _sharded_dense_paired_step(
     jax.jit,
     static_argnames=(
         "mesh", "R", "B", "bwl", "K", "k", "Lmax", "num_kmers", "PT",
-        "log_eps", "eps", "tile_scale", "PT_OV", "OV", "N_OV", "interpret",
+        "log_eps", "eps", "tile_scale", "PT_OV", "OV", "N_OV",
     ),
 )
 def _sharded_tiles_bytes_step(
@@ -533,66 +525,45 @@ def _sharded_tiles_bytes_step(
     num_kmers: int, PT: int, log_eps: float, eps: float,
     tile_scale: float = 0.0,
     PT_OV: int = 0, OV: int = 0, N_OV: int = 0,
-    interpret: bool = False,
 ):
-    """Column-sharded posting-TILE step: the big-tree mode across chips.
+    """Column-sharded posting-TILE step: the big-tree mode across devices.
 
     Each model shard owns the branch block [m*bwl, (m+1)*bwl) and keeps
     per-key tiles of ONLY its local postings (branch ids re-based to the
-    block).  Tokenization runs redundantly per shard (cheap VPU work
-    against the replicated packed buffer); each shard row-gathers its own
-    tiles and accumulates with the MXU kernel; the merge is the same
-    O(R*K*n_model) collective tail as the dense sharded mode
-    (finish_scores_cols_shifted).  ``tile_scale`` > 0 selects the packed
-    int32 payload + exact bf16-digit accumulate (the round-4 single-chip
-    layout; shard_tiles_columns).  Engine analog:
+    block).  Tokenization runs redundantly per shard (cheap elementwise
+    work against the replicated packed buffer); each shard row-gathers its
+    own tiles and sums them per (read, branch) (ops/accumulate.py); the
+    merge is the same O(R*K*n_model) collective tail as the dense sharded
+    mode (finish_scores_cols_shifted).  ``tile_scale`` > 0 selects the
+    packed int32 payload with its exact int32 accumulate
+    (shard_tiles_columns).  Engine analog:
     engine/placer.py::_place_batch_tiles_bytes."""
 
     def block(tiles, direct, buf, tiles_ov=None):
-        from ..ops.pallas.accumulate import (
-            segment_accumulate_packed,
-            segment_accumulate_sums,
-            trash_branch,
-        )
-
         tiles = tiles[0]
         i32 = jnp.int32
         f32 = jnp.float32
         rows, lens = device_tokenize_packed(
             buf, direct, k=k, Lmax=Lmax, num_kmers=num_kmers
         )
-        m_signed = lens - i32(k - 1)
-        m_f32 = jnp.where(
-            m_signed >= 0, m_signed.astype(f32),
-            f32(float(_U64)) + m_signed.astype(f32),
-        )
+        m_f32 = _window_count_f32(lens, k)
         W = rows.shape[1]
-        pp = W * PT
-        ch = 512
-        trash = trash_branch(bwl)
         if tile_scale > 0.0:
-            g = tiles[rows].reshape(R, pp)
+            g = tiles[rows].reshape(R, W * PT)
             cnt_ov = None
             if PT_OV > 0:
-                # two-level tiles (round 5, shared design with the
-                # single-chip engine): overflow keys sit at rows
-                # [0, N_OV) via the direct-table permutation, overflow
-                # windows compact to a static OV budget by top_k, and
-                # the true per-read count rides an extra result column
-                # for the host's exactness-by-retry
+                # two-level tiles (shared design with the single-device
+                # engine): overflow keys sit at rows [0, N_OV) via the
+                # direct-table permutation, overflow windows compact to a
+                # static OV budget by top_k, and the true per-read count
+                # rides an extra result column for the host's
+                # exactness-by-retry
                 ovr = jnp.where(rows < i32(N_OV), rows + 1, 0)
                 cnt_ov = jnp.sum((ovr > 0).astype(i32), axis=1)
                 tov = tiles_ov[0]
                 gov = tov[jax.lax.top_k(ovr, OV)[0]].reshape(R, OV * PT_OV)
                 g = jnp.concatenate([g, gov], axis=1)
-                pp2 = pp + OV * PT_OV
-            else:
-                pp2 = pp
-            pp_pad = -(-pp2 // ch) * ch
-            g = jnp.pad(g, ((0, 0), (0, pp_pad - pp2)),
-                        constant_values=np.int32(trash << 16))
-            Sq = segment_accumulate_packed(g, bwl, ch=ch, interpret=interpret)
-            Sp = Sq / f32(tile_scale)
+            Sp = segment_sums_packed(g, bwl).astype(f32) / f32(tile_scale)
             outs = finish_scores_cols_shifted(Sp, m_f32, B=B, K=K, k=k,
                                               log_eps=log_eps)
             pack = _pack_outputs_slim(outs)
@@ -601,13 +572,10 @@ def _sharded_tiles_bytes_step(
                     [pack, cnt_ov.astype(f32)[:, None]], axis=1
                 )
             return pack[None]
-        pp_pad = -(-pp // ch) * ch
-        g = tiles[rows].reshape(R, pp, 2)
+        g = tiles[rows].reshape(R, W * PT, 2)
         b = g[..., 0].astype(i32)
         s = jax.lax.bitcast_convert_type(g[..., 1], f32)
-        b = jnp.pad(b, ((0, 0), (0, pp_pad - pp)), constant_values=trash)
-        s = jnp.pad(s, ((0, 0), (0, pp_pad - pp)))
-        Sp = segment_accumulate_sums(b, s, bwl, ch=ch, interpret=interpret)
+        Sp = segment_sums(b, s, bwl)
         outs = finish_scores_cols_shifted(Sp, m_f32, B=B, K=K, k=k,
                                           log_eps=log_eps)
         return _pack_outputs_slim(outs)[None]
@@ -670,14 +638,13 @@ def _sharded_dense_rows_step(
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "R", "B", "K", "Pb", "PAb", "k", "log_eps",
-                     "eps", "dense_acc", "interpret"),
+                     "eps"),
 )
 def _sharded_csr_step(
     seed1, seed2, t_packed, db_post, row_off,
     e_hi, e_lo, e_read, a_hi, a_lo, a_read, a_order, m_f32, *,
     mesh, R: int, B: int, K: int, Pb: int, PAb: int, k: int,
-    log_eps: float, eps: float, dense_acc: bool = False,
-    interpret: bool = False,
+    log_eps: float, eps: float,
 ):
     """Hash-sharded CSR step (big-DB mode): per-shard posting scatter-adds
     merged with psum over the model axis; ambiguous first-hit merged with
@@ -688,21 +655,10 @@ def _sharded_csr_step(
         table = t_packed[0]
         s1 = seed1[0, 0]
         s2 = seed2[0, 0]
-        # dense_acc: the Pallas one-hot MXU accumulate over per-read
-        # expanded tiles (duplicate-index scatter serializes on TPU --
-        # measured 3.0k vs 61-132k reads/s for the other sharded modes at
-        # mesh 1x1); Pb is then a PER-READ posting budget and e_total the
-        # max per-read count (engine/placer.py::accumulate_exact_dense)
-        if dense_acc:
-            S, C, e_total = accumulate_exact_dense(
-                table, db_post[0], row_off[0], e_hi[0], e_lo[0], e_read[0],
-                R=R, B=B, PP=Pb, seed1=s1, seed2=s2, interpret=interpret,
-            )
-        else:
-            S, C, e_total = accumulate_exact(
-                table, db_post[0], row_off[0], e_hi[0], e_lo[0], e_read[0],
-                R=R, B=B, P=Pb, seed1=s1, seed2=s2,
-            )
+        S, C, e_total = accumulate_exact(
+            table, db_post[0], row_off[0], e_hi[0], e_lo[0], e_read[0],
+            R=R, B=B, P=Pb, seed1=s1, seed2=s2,
+        )
         first, V, a_total = accumulate_amb_firsthit(
             table, db_post[0], row_off[0], a_hi[0], a_lo[0], a_read[0], a_order[0],
             R=R, B=B, PA=PAb, k=k, seed1=s1, seed2=s2, eps=eps,
@@ -718,7 +674,7 @@ def _sharded_csr_step(
         outs = finish_scores(S, C, m[0], B=B, K=K, k=k, log_eps=log_eps)
         e_tot = jax.lax.pmax(e_total, MODEL_AXIS)
         a_tot = jax.lax.pmax(a_total, MODEL_AXIS)
-        # slim pack + totals row (round 5): counts are not in the jplace
+        # slim pack + totals row: counts are not in the jplace
         # format and wr derives from (scores, log_sum) host-side, so the
         # CSR wire carries 2K+3 columns like the dense shifted paths
         return _pack_outputs_slim_totals(outs, e_tot, a_tot)[None]
@@ -740,15 +696,14 @@ def _sharded_csr_step(
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "R", "B", "K", "Pb", "k", "Lmax", "log_eps",
-                     "eps", "dense_acc", "interpret"),
+                     "eps"),
 )
 def _sharded_csr_bytes_step(
     seed1, seed2, t_packed, db_post, row_off, buf, *,
     mesh, R: int, B: int, K: int, Pb: int, k: int, Lmax: int,
-    log_eps: float, eps: float, dense_acc: bool = False,
-    interpret: bool = False,
+    log_eps: float, eps: float,
 ):
-    """Hash-sharded CSR step with ON-DEVICE tokenization (round 5).
+    """Hash-sharded CSR step with ON-DEVICE tokenization.
 
     Clean DNA batches ship only the packed read buffer (the same native
     one-pass staging as the dense/tile sharded paths,
@@ -772,23 +727,13 @@ def _sharded_csr_bytes_step(
         e_hi = jnp.where(ok, u32(0), u32(0xFFFFFFFF)).reshape(-1)
         e_lo = jnp.where(ok, key, u32(0xFFFFFFFF)).reshape(-1)
         e_read = jax.lax.broadcasted_iota(i32, (R, W), 0).reshape(-1)
-        if dense_acc:
-            S, C, e_total = accumulate_exact_dense(
-                table, db_post[0], row_off[0], e_hi, e_lo, e_read,
-                R=R, B=B, PP=Pb, seed1=s1, seed2=s2, interpret=interpret,
-            )
-        else:
-            S, C, e_total = accumulate_exact(
-                table, db_post[0], row_off[0], e_hi, e_lo, e_read,
-                R=R, B=B, P=Pb, seed1=s1, seed2=s2,
-            )
+        S, C, e_total = accumulate_exact(
+            table, db_post[0], row_off[0], e_hi, e_lo, e_read,
+            R=R, B=B, P=Pb, seed1=s1, seed2=s2,
+        )
         S = jax.lax.psum(S, MODEL_AXIS)
         C = jax.lax.psum(C, MODEL_AXIS)
-        m_signed = lens - i32(k - 1)
-        m_f32 = jnp.where(
-            m_signed >= 0, m_signed.astype(f32),
-            f32(float(_U64)) + m_signed.astype(f32),
-        )
+        m_f32 = _window_count_f32(lens, k)
         outs = finish_scores(S, C, m_f32, B=B, K=K, k=k, log_eps=log_eps)
         e_tot = jax.lax.pmax(e_total, MODEL_AXIS)
         return _pack_outputs_slim_totals(outs, e_tot, jnp.int32(0))[None]
@@ -812,7 +757,7 @@ class ShardedJaxPlacer(HostStaging):
     surface as JaxPlacer, so the in-flight batch pipeline
     (engine/pipeline.py) drives both identically.  Host staging (native
     tokenizer + threaded key->row lookup) is shared with JaxPlacer via
-    HostStaging -- an n-chip data axis multiplies device throughput, so the
+    HostStaging -- an n-device data axis multiplies device throughput, so the
     host side must not fall back to single-threaded pure-Python paths."""
 
     def __init__(
@@ -849,18 +794,20 @@ class ShardedJaxPlacer(HostStaging):
         self.pendant = mean + self.distal
 
         cfg = self.config
+        # memory budgets: unset ones are shares of the (local) device's pool
+        dense_budget, pair_budget, _ = device_memory_budgets()
+        if cfg.dense_db_budget is None:
+            cfg.dense_db_budget = dense_budget
+        if cfg.pair_plane_budget is None:
+            cfg.pair_plane_budget = pair_budget
         bwl = -(-self.B // (128 * self.n_model)) * 128
         # per-DEVICE plane bytes decide fit: column sharding divides the
         # plane by n_model, which is what lets big trees go dense
         plane_bytes = (db.num_kmers + 1) * bwl * 4
         cfgd = cfg.dense_db
         self._dense_db = cfgd == "on" or (
-            cfgd == "auto"
-            and cfg.accumulate == "auto"
-            and plane_bytes <= cfg.dense_db_budget
+            cfgd == "auto" and plane_bytes <= cfg.dense_db_budget
         )
-        backend = jax.default_backend()
-        self._interpret = backend != "tpu"
 
         # shifted single-reduce mode: same validity guard as JaxPlacer
         # (all stored scores >= log10(eps) -- the load contract, quirk Q10)
@@ -938,11 +885,10 @@ class ShardedJaxPlacer(HostStaging):
                     planes = full
                     self._paired = True
             # 2D column-sharded layout (N, n_model*bwl): shard m's columns
-            # are [m*bwl, (m+1)*bwl).  Round 5: the stacked (n_model, N,
-            # bwl) layout with plane[0] inside shard_map compiled the row
-            # gather ~1.75x slower (57.5 vs 32.6 ms/8192-batch at mesh 1x1
-            # -- the leading unit dim survives into the gather's operand
-            # layout); the 2D form restores the single-chip gather shape.
+            # are [m*bwl, (m+1)*bwl).  With a stacked (n_model, N, bwl)
+            # layout and plane[0] inside shard_map, the leading unit dim
+            # survives into the gather's operand layout; the 2D form keeps
+            # the single-device gather shape.
             plane2d = np.ascontiguousarray(
                 planes.transpose(1, 0, 2).reshape(planes.shape[1], -1)
             )
@@ -961,25 +907,16 @@ class ShardedJaxPlacer(HostStaging):
             self._dev_row_off = jax.device_put(sdb.row_off, spec_m)
             self._seed1 = np.array([s[0] for s in sdb.seeds], dtype=np.uint32)
             self._seed2 = np.array([s[1] for s in sdb.seeds], dtype=np.uint32)
-            # posting-TILE mode (big trees across chips): column-sharded
-            # tiles + sum-only MXU accumulate; CSR stays resident as the
+            # posting-TILE mode (big trees across devices): column-sharded
+            # tiles + per-shard accumulate; CSR stays resident as the
             # ambiguous-batch fallback.  Same gates as the engine's
-            # single-chip tiles mode (engine/placer.py).
+            # single-device tiles mode (engine/placer.py).
             lens = np.diff(db.row_off)
             max_plen = int(lens.max()) if lens.size else 0
             shift_ok = (db.scores.size == 0
                         or float(db.scores.min()) >= float(self.log_eps))
-            dense_acc = cfg.accumulate == "matmul" or (
-                cfg.accumulate == "auto" and backend == "tpu"
-            )
-            # the CSR steps also use the MXU accumulate on TPU
-            # (duplicate-index scatter serializes there: measured 3.0k vs
-            # 61-132k reads/s at mesh 1x1); CPU keeps the XLA scatter,
-            # which is fast off-TPU and avoids interpret-mode kernels
-            self._csr_dense_acc = dense_acc
             if (
-                dense_acc
-                and cfg.tokenize_where in ("auto", "device")
+                cfg.tokenize_where in ("auto", "device")
                 and cfg.precision == "exact"
                 and self.alphabet.sigma == 4
                 and self.k <= 13
@@ -1057,11 +994,11 @@ class ShardedJaxPlacer(HostStaging):
         if not (self.k <= Lmax_true <= 0xFFFF):
             return None
         Lmax = _bucket_lmax(Lmax_true)
-        # packed-tile exactness gate (same as the single-chip engine,
+        # packed-tile exactness gate (same as the single-device engine,
         # engine/placer.py::_stage_bytes): per-(read, branch) integer sums
-        # are bounded by W * 64000 and must stay < 2**24 for the f32
-        # accumulator to be exact -- long reads take the CSR fallback
-        if self._tile_scale > 0.0 and (Lmax - self.k + 1) * 64000 >= (1 << 24):
+        # are bounded by W * 64000 and must fit the int32 accumulator --
+        # longer reads take the CSR fallback
+        if self._tile_scale > 0.0 and (Lmax - self.k + 1) * 64000 >= (1 << 31):
             return None
         flat = np.frombuffer(b"".join(seqs), np.uint8)
         starts = np.concatenate([[0], np.cumsum(lens_arr)])
@@ -1088,7 +1025,6 @@ class ShardedJaxPlacer(HostStaging):
                     PT_OV=self._tile_pt_ov, OV=min(OV_, _W),
                     N_OV=self._tile_n_ov,
                     log_eps=float(self.log_eps), eps=float(self.eps),
-                    interpret=self._interpret,
                 )
 
             arrays = (self._dev_tiles, self._dev_direct, buf,
@@ -1103,7 +1039,6 @@ class ShardedJaxPlacer(HostStaging):
             k=self.k, Lmax=Lmax, num_kmers=self.db.num_kmers,
             PT=self._tile_pt, tile_scale=float(self._tile_scale),
             log_eps=float(self.log_eps), eps=float(self.eps),
-            interpret=self._interpret,
         )
         return _Pending(sequence_map, seqs, m_signed, out, None, (None, R_true, K))
 
@@ -1123,9 +1058,7 @@ class ShardedJaxPlacer(HostStaging):
         if self._fast_bytes and self.k <= Lmax_true <= 0xFFFF:
             Lmax = _bucket_lmax(Lmax_true)
             # one native staging pass (pack + char-code map + ambiguity
-            # scan, ~2 ms vs ~30 ms numpy on the 2-core host; the same
-            # round-4 lever that put the single-chip loop at the device
-            # bound -- HostStaging._pack_reads_fast)
+            # scan; HostStaging._pack_reads_fast)
             buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax,
                                                   R_tot)
             if amb_mask.any():
@@ -1192,7 +1125,7 @@ class ShardedJaxPlacer(HostStaging):
         K = min(cfg.keep_at_most, self.B)
         nd = self.n_data
 
-        # device-tokenize fast path (round 5): clean DNA batches ship only
+        # device-tokenize fast path: clean DNA batches ship only
         # the packed byte buffer, like the dense/tile sharded paths
         if (
             self._sdb is not None
@@ -1211,18 +1144,10 @@ class ShardedJaxPlacer(HostStaging):
                     W = Lmax - self.k + 1
                     est = max(1, int(self._sdb.avg_plen
                                      * cfg.budget_headroom))
-                    if self._csr_dense_acc:
-                        # PER-READ posting budget (the dense accumulate's
-                        # tile width), 512-multiple for the kernel grid
-                        Pb = _bucket(
-                            max(512, W * est // max(1, self.n_model)),
-                            max(cfg.min_bucket, 512),
-                        )
-                    else:
-                        Pb = _bucket(
-                            max(1, R_loc * W * est // max(1, self.n_model)),
-                            cfg.min_bucket,
-                        )
+                    Pb = _bucket(
+                        max(1, R_loc * W * est // max(1, self.n_model)),
+                        cfg.min_bucket,
+                    )
                     inputs = (
                         jnp.asarray(self._seed1), jnp.asarray(self._seed2),
                         self._dev_packed, self._dev_postings,
@@ -1232,8 +1157,6 @@ class ShardedJaxPlacer(HostStaging):
                         *inputs, mesh=self.mesh, R=R_loc, B=self.B, K=K,
                         Pb=Pb, k=self.k, Lmax=Lmax,
                         log_eps=float(self.log_eps), eps=float(self.eps),
-                        dense_acc=self._csr_dense_acc,
-                        interpret=self._interpret,
                     )
                     m_signed = lens_arr - self.k + 1
                     return _Pending(
@@ -1251,17 +1174,7 @@ class ShardedJaxPlacer(HostStaging):
         A = _bucket(max(t.amb_keys.shape[0] for t in toks), cfg.min_bucket)
         est = max(1, int(self._sdb.avg_plen * cfg.budget_headroom))
         # each model shard owns ~1/n_model of the postings
-        if self._csr_dense_acc:
-            wpr = max(
-                (int(np.bincount(t.exact_read).max())
-                 if t.exact_read.size else 1)
-                for t in toks
-            )
-            Pb = _bucket(max(512, wpr * est // max(1, self.n_model)),
-                         max(cfg.min_bucket, 512))
-        else:
-            Pb = _bucket(max(1, E * est // max(1, self.n_model)),
-                         cfg.min_bucket)
+        Pb = _bucket(max(1, E * est // max(1, self.n_model)), cfg.min_bucket)
         PAb = _bucket(max(1, A * est // max(1, self.n_model)), cfg.min_bucket)
 
         def pad_group(t):
@@ -1290,7 +1203,6 @@ class ShardedJaxPlacer(HostStaging):
         out = _sharded_csr_step(
             *inputs, mesh=self.mesh, R=R_loc, B=self.B, K=K, Pb=Pb, PAb=PAb,
             k=self.k, log_eps=float(self.log_eps), eps=float(self.eps),
-            dense_acc=self._csr_dense_acc, interpret=self._interpret,
         )
         return _Pending(
             sequence_map, seqs, m_signed, out, (Pb, PAb), (inputs, R_true, K)
@@ -1373,15 +1285,12 @@ class ShardedJaxPlacer(HostStaging):
                     *inputs, mesh=self.mesh, R=R_loc, B=self.B, K=K,
                     Pb=Pb, k=self.k, Lmax=kind[1],
                     log_eps=float(self.log_eps), eps=float(self.eps),
-                    dense_acc=self._csr_dense_acc,
-                    interpret=self._interpret,
                 )
             else:
                 out = _sharded_csr_step(
                     *inputs, mesh=self.mesh, R=R_loc, B=self.B, K=K, Pb=Pb,
                     PAb=PAb, k=self.k, log_eps=float(self.log_eps),
-                    eps=float(self.eps), dense_acc=self._csr_dense_acc,
-                    interpret=self._interpret,
+                    eps=float(self.eps),
                 )
         flat = arr[:, :-1, :].reshape(self.n_data * R_loc, -1)[:R_true]
         return self._assemble_flat(pending, flat, K)

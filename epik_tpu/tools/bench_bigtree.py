@@ -1,8 +1,9 @@
-"""Large-tree benchmark: the 10k-taxa metagenome shape (BASELINE.md config 4).
+"""Large-tree benchmark: the 10k-taxa metagenome shape (BASELINE.json config 4).
 
-At 10k taxa (~20k branches) the dense planes stop fitting HBM budgets
-(1M keys x 20k branches x 4B = 80 GB), so this exercises the CSR path:
-cuckoo lookup -> padded posting tiles -> Pallas one-hot MXU accumulate.
+At 10k taxa (~20k branches) the dense planes stop fitting the device
+memory budget (1M keys x 20k branches x 4B = 80 GB), so this exercises the
+posting-tiles path: device tokenize -> one tile row gather per window ->
+scatter-add accumulate (ops/accumulate.py) -> finish.
 
 Usage: python -m epik_tpu.tools.bench_bigtree [--reads 8000] [--leaves 10000]
 """
@@ -25,19 +26,11 @@ def main(argv=None):
     ap.add_argument("--leaves", type=int, default=10000)
     ap.add_argument("--ref-len", type=int, default=1_000_000)
     ap.add_argument("--k", type=int, default=10)
-    # 4096 measures ~25% faster than 8192 with the round-5 two-level
-    # engine (101.3k vs ~80k; benchmarks/bench_bigtree_r05*.json)
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--inflight", type=int, default=6)
     ap.add_argument("--loops", type=int, default=4,
                     help="repeats of the read set per timed pass")
-    ap.add_argument("--platform", default=None)
     args = ap.parse_args(argv)
-
-    import jax
-
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
 
     from ..core.tree import parse_newick
     from ..engine.placer import JaxPlacer, PlacerConfig
@@ -60,7 +53,7 @@ def main(argv=None):
     from ..engine.placer import PlacerConfig
 
     cfg = PlacerConfig(host_threads=max(2, os.cpu_count() or 2))
-    placer = JaxPlacer(db, tree, config=cfg)  # auto: planes exceed budget -> CSR
+    placer = JaxPlacer(db, tree, config=cfg)  # auto: planes exceed budget -> tiles
     mode = ("posting_tiles" if placer._tiles_mode
             else "dense" if placer._dense_db else "csr")
     log(f"mode: {mode} "
@@ -74,22 +67,17 @@ def main(argv=None):
                for s in range(0, args.reads, args.batch)]
 
     # interleaved native C++ scalar baseline (-j 1), same noise regime as
-    # the TPU passes -- a constant from another day mis-states the ratio
-    # on this shared 2-core host (the d652 bench learned this in round 2)
-    base_fn = None
-    try:
-        from ..native import NativeScalarPlacer
+    # the device passes -- a constant from another run mis-states the ratio
+    from ..native import NativeScalarPlacer
 
-        nat = NativeScalarPlacer(db)
-        base_seqs = [s for _, s in reads[:3000]]
-        nat.place_scores(base_seqs[:100])
+    nat = NativeScalarPlacer(db)
+    base_seqs = [s for _, s in reads[:3000]]
+    nat.place_scores(base_seqs[:100])
 
-        def base_fn():
-            t_b = time.time()
-            nat.place_scores(base_seqs)
-            return len(base_seqs) / (time.time() - t_b)
-    except Exception as e:  # pragma: no cover
-        log(f"native baseline unavailable ({e})")
+    def base_fn():
+        t_b = time.time()
+        nat.place_scores(base_seqs)
+        return len(base_seqs) / (time.time() - t_b)
 
     best, base_best = 0.0, 0.0
     for p in range(3):
@@ -100,11 +88,11 @@ def main(argv=None):
             f.result()
         rps = args.loops * args.reads / (time.time() - t_run)
         best = max(best, rps)
-        b_rps = base_fn() if base_fn else 0.0
+        b_rps = base_fn()
         base_best = max(base_best, b_rps)
-        log(f"pass {p + 1}: tpu {rps:.0f} reads/s | baseline {b_rps:.0f}")
+        log(f"pass {p + 1}: device {rps:.0f} reads/s | baseline {b_rps:.0f}")
 
-    base = base_best if base_best else 19437.2  # r03 fallback constant
+    base = base_best
     print(json.dumps({
         "metric": "bigtree_reads_per_sec_per_chip",
         "value": round(best, 1),

@@ -1,15 +1,15 @@
-"""BASELINE.md config rows 2-4: amino perf, mu/max-ram load, big-tree baseline.
+"""BASELINE.json config rows 2-4: amino perf, mu/max-ram load, big-tree baseline.
 
 Measures, on the live backend (prints one JSON line per row to stdout):
 
-* ``amino``    -- reads/s/chip for protein placement (BASELINE config 2).
-  Amino has no device-tokenize path (sigma=20), so this exercises the dense
-  host-lookup rows path; baseline = the native C++ scalar placer.
+* ``amino``    -- reads/s/device for protein placement (BASELINE config 2):
+  the radix-lookup device-tokenize path; baseline = the native C++ scalar
+  placer.
 * ``load``     -- DB load wall time for full / --mu 0.5 / --max-ram-style
   max_entries loads (BASELINE config 3; reference: i2l::load partial
   loading, epik/src/epik/main.cpp:252-277).
 * ``bigtree_base`` -- the native C++ scalar baseline on the 10k-taxa config
-  (contextualizes tools/bench_bigtree.py's TPU number).
+  (contextualizes tools/bench_bigtree.py's device number).
 
 Usage: python -m epik_tpu.tools.bench_configs [--rows amino,load,bigtree_base]
 """
@@ -58,8 +58,8 @@ def _amino_row():
     pool = ThreadPoolExecutor(max_workers=6)
     batches = [reads[s : s + BATCH] for s in range(0, n_reads, BATCH)]
     # one untimed steady-state pass: the first timed pass otherwise pays
-    # XLA autotuning + first-touch HBM paging (observed as a consistently
-    # ~5x-depressed pass 1; same rationale as bench.py)
+    # XLA autotuning and first touches of the plane (same rationale as
+    # bench.py)
     for f in [pool.submit(placer.place, b) for b in batches]:
         f.result()
     best = 0.0
@@ -150,7 +150,7 @@ def _bigtree_base_row():
 
 def _longread_row():
     """Nanopore-shaped long reads (2-10 kb) through the production D652
-    engine (BASELINE.md config 6, round 5).
+    engine (the long-read row).
 
     The window-flattening design claims long reads parallelize for free
     (SURVEY.md section 5.7: a read is just more windows); this measures it.
@@ -183,7 +183,7 @@ def _longread_row():
     placer.place(reads[:BATCH])  # warmup compile
     pool = ThreadPoolExecutor(max_workers=6)
     for f in [pool.submit(placer.place, b) for b in batches]:
-        f.result()  # steady-state pass (autotune + HBM first touch)
+        f.result()  # steady-state pass (autotune + first touches)
     LOOPS = 3
     best = 0.0
     for p in range(3):

@@ -1,9 +1,9 @@
-"""Multi-device scaling-efficiency benchmark (BASELINE.md configs 4-5).
+"""Multi-device scaling-efficiency benchmark (BASELINE.json configs 4-5).
 
 Measures reads/s at 1..N devices on the available backend.  On a CPU host
 with ``--xla_force_host_platform_device_count=8`` this validates the
-sharding *logic* and collective overhead; on a real multi-chip slice it
-measures true scaling efficiency (target >= 80%, BASELINE.md).
+sharding *logic* and collective overhead; on real multi-GPU hosts it
+measures true scaling efficiency (target >= 80%, BASELINE.json).
 
 Usage: python -m epik_tpu.tools.bench_scaling [--reads 20000] [--devices 1 2 4 8]
 """
@@ -31,13 +31,9 @@ def main(argv=None):
     ap.add_argument("--devices", type=int, nargs="+", default=None)
     ap.add_argument("--n-model", type=int, default=1,
                     help="model-axis shards (DB hash-sharded when > 1)")
-    ap.add_argument("--platform", default=None)
     args = ap.parse_args(argv)
 
     import jax
-
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
 
     from ..core.alphabet import DNA
     from ..core.tree import parse_newick
@@ -85,7 +81,7 @@ def main(argv=None):
         log(
             "NOTE: host-platform virtual devices share the same physical "
             "cores -- these numbers validate sharding logic and collective "
-            "overhead, not real scaling (run on a multi-chip slice for that)."
+            "overhead, not real scaling (run on several GPUs for that)."
         )
     print(json.dumps({
         "metric": "scaling_efficiency",

@@ -1,6 +1,6 @@
 """Sharded-engine overhead row: ShardedJaxPlacer on a 1x1 mesh vs JaxPlacer.
 
-BASELINE.md config 5 requires the sharded engine to cost ~nothing when the
+BASELINE.json config 5 requires the sharded engine to cost ~nothing when the
 mesh degenerates to one device -- the shard_map program, padded batch
 geometry, and two-stage top-k must not tax the single-chip fast path by
 more than ~10%.  Uses the exact bench.py fixture/geometry so compiled
@@ -35,8 +35,9 @@ def main(argv=None) -> int:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/epik_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from ..utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     from ..core.tree import parse_newick
     from ..engine.placer import JaxPlacer, PlacerConfig
@@ -59,7 +60,7 @@ def main(argv=None) -> int:
     pool = ThreadPoolExecutor(max_workers=args.inflight)
     rates = {}
     # engines are built and measured SEQUENTIALLY: each may own a multi-GB
-    # (pair) plane, and two resident planes exhaust one chip's HBM
+    # (pair) plane, and two resident planes exhaust one device's memory
     for name in ("jax", "sharded_1x1"):
         if name == "jax":
             placer = JaxPlacer(db, tree, config=cfg)

@@ -1,4 +1,4 @@
-"""Multi-host placement worker: one rank of a 2+-process CPU/TPU job.
+"""Multi-process placement worker: one rank of a 2+-process job.
 
 Usage (one invocation per rank; also the multi-host usage example):
 
@@ -29,8 +29,7 @@ process, SURVEY.md section 5.8) -- this path is green-field.
 
 On CPU the test harness (tests/test_multihost.py) spawns 2 ranks with 4
 virtual devices each (XLA_FLAGS=--xla_force_host_platform_device_count=4);
-on real multi-host TPU pods the same code runs with the pod's own
-coordinator env and no flags.
+on GPU hosts the same code runs with one device set per process.
 """
 
 from __future__ import annotations
@@ -166,7 +165,10 @@ def main() -> int:
         ]
         reads.append((f"q{i}", "".join(parts).encode()))
 
-    cfg = PlacerConfig(dense_db="off") if mode == "csr" else PlacerConfig()
+    # csr: a 1 KiB budget fits neither dense planes nor tiles, the regime
+    # of a DB larger than device memory
+    cfg = (PlacerConfig(dense_db_budget=1024) if mode == "csr"
+           else PlacerConfig())
     placer = ShardedJaxPlacer(db, tree, mesh, config=cfg)
     out = placer.place(reads)
 

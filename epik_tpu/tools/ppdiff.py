@@ -8,7 +8,7 @@ external tools are not cloneable, so the *pattern* is ported, not the code).
 
 Here the implementation pairs are in-repo:
 
-* ``jax``       -- the TPU/XLA engine (engine/placer.py)
+* ``jax``       -- the XLA engine (engine/placer.py)
 * ``sharded``   -- the multi-device engine on a virtual mesh
 * ``reference`` -- the faithful scalar oracle (engine/reference.py)
 * ``native``    -- the C++ scalar placer scores (engine-level diff only)
@@ -18,12 +18,11 @@ synthetic or a file) and a query workload; databases are cached in the
 work directory keyed by their config hash.
 
 Determinism note: on CPU the XLA engine matches the scalar oracle exactly
-(observed 100% on all built-in cases).  On TPU, MXU float32 accumulation
-rounds differently from strict sequential float32 addition, so reads whose
-7th/8th-best branches are near-ties can swap membership at the
-keep-at-most cut (~1% of reads on adversarial synthetic fixtures; every
+on all built-in cases.  An accelerator may sum float32 in another order
+than strict sequential addition, so reads whose 7th/8th-best branches are
+near-ties could swap membership at the keep-at-most cut while every
 reported score still agrees within the 1e-4 probability-space parity
-tolerance).  The reference itself has unstable tie order
+tolerance.  The reference itself has unstable tie order
 (std::partial_sort, reference: place.cpp:153-156).
 """
 
@@ -33,6 +32,7 @@ import argparse
 import hashlib
 import json
 import os
+import tempfile
 
 import numpy as np
 
@@ -161,15 +161,17 @@ def run_case(case: dict, workdir: str) -> tuple[bool, str]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="differential placement harness")
     ap.add_argument("--config", help="JSON config (default: built-in cases)")
-    ap.add_argument("--workdir", default="/tmp/epik_tpu_ppdiff")
+    ap.add_argument("--workdir", default=None,
+                    help="work directory (default: a fresh temp directory)")
     args = ap.parse_args(argv)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="epik_ppdiff_")
     cfg = DEFAULT_CONFIG
     if args.config:
         with open(args.config) as f:
             cfg = json.load(f)
     ok = True
     for case in cfg["cases"]:
-        clean, msg = run_case(case, args.workdir)
+        clean, msg = run_case(case, workdir)
         print(("PASS " if clean else "FAIL ") + msg)
         ok = ok and clean
     return 0 if ok else 1

@@ -1,6 +1,6 @@
-// EPIK-TPU native host library.
+// EPIK native host library.
 //
-// C++ implementations of the host-side runtime around the TPU compute path:
+// C++ implementations of the host-side runtime around the device compute path:
 //   1. a buffered FASTA batch reader       (re-provides i2l::io::batch_fasta,
 //      reference: epik/src/epik/main.cpp:332-358)
 //   2. a k-mer window tokenizer with the one-ambiguity policy
@@ -16,7 +16,8 @@
 // (epik_tpu/native.py); all buffers are caller-owned numpy arrays except
 // where a result struct is returned and released with eh_free.
 //
-// Build: cmake -S native -B build && cmake --build build  (see CMakeLists.txt)
+// Build: built on first use by epik_tpu/native.py into build/
+//   (g++ -O3 -std=c++17 -shared -fPIC -fopenmp native/epik_host.cpp)
 
 #include <algorithm>
 #include <cmath>

@@ -8,14 +8,35 @@ import json
 
 import numpy as np
 import pytest
-from click.testing import CliRunner
-
-from epik_tpu.cli.main import epik, make_invocation, make_output_filename
+from epik_tpu.cli.main import main, make_invocation, make_output_filename
 from epik_tpu.core.alphabet import DNA
 from epik_tpu.io.build import random_db
 from epik_tpu.io.db import save
 from epik_tpu.tools.jplace_diff import jplace_diff
 from epik_tpu.utils.progress import humanize_time, parse_human_readable, to_human_readable
+
+
+class _Result:
+    def __init__(self, exit_code: int, output: str):
+        self.exit_code = exit_code
+        self.output = output
+
+
+@pytest.fixture
+def cli(capsys):
+    """Run ``epik`` in-process through ``main(argv)``; the result carries
+    the exit code and stdout + stderr (as a terminal would show them)."""
+
+    def run(args):
+        capsys.readouterr()  # drop anything printed before this call
+        try:
+            code = main([str(a) for a in args])
+        except SystemExit as e:  # argparse: --help, usage errors
+            code = e.code if isinstance(e.code, int) else 1
+        out, err = capsys.readouterr()
+        return _Result(code, out + err)
+
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -70,15 +91,16 @@ class TestHelpers:
 
 
 class TestPlaceCommand:
+    @pytest.fixture(autouse=True)
+    def _cli(self, cli):
+        self.cli = cli
+
     def _run(self, fixture_dir, outsub, *extra):
         out = fixture_dir / outsub
         out.mkdir(exist_ok=True)
-        runner = CliRunner()
-        result = runner.invoke(
-            epik,
+        result = self.cli(
             ["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
              str(fixture_dir / "q.fasta"), *extra],
-            catch_exceptions=False,
         )
         return result, out / "placements_q.fasta.jplace"
 
@@ -122,8 +144,7 @@ class TestPlaceCommand:
         assert len(names) == 30
 
     def test_help(self):
-        runner = CliRunner()
-        result = runner.invoke(epik, ["place", "--help"])
+        result = self.cli(["place", "--help"])
         assert result.exit_code == 0
         for flag in ("--database", "--states", "--omega", "--mu", "--max-ram",
                      "--keep-at-most", "--keep-factor", "--batch-size"):
@@ -131,13 +152,12 @@ class TestPlaceCommand:
 
 
 class TestSubcommands:
-    def test_convert_roundtrip(self, fixture_dir, tmp_path):
-        runner = CliRunner()
+    def test_convert_roundtrip(self, cli, fixture_dir, tmp_path):
         ipk = tmp_path / "db.ipk"
         back = tmp_path / "back.eptk"
-        r1 = runner.invoke(epik, ["convert", str(fixture_dir / "DB.eptk"), str(ipk)])
+        r1 = cli(["convert", str(fixture_dir / "DB.eptk"), str(ipk)])
         assert r1.exit_code == 0, r1.output
-        r2 = runner.invoke(epik, ["convert", str(ipk), str(back)])
+        r2 = cli(["convert", str(ipk), str(back)])
         assert r2.exit_code == 0, r2.output
         from epik_tpu.io.db import load
 
@@ -145,35 +165,29 @@ class TestSubcommands:
         np.testing.assert_array_equal(a.keys, b.keys)
         np.testing.assert_array_equal(a.scores, b.scores)
 
-    def test_diff_command(self, fixture_dir):
-        runner = CliRunner()
+    def test_diff_command(self, cli, fixture_dir):
         out = fixture_dir / "od1"
         out.mkdir(exist_ok=True)
-        r = runner.invoke(
-            epik,
-            ["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
-             str(fixture_dir / "q.fasta")],
-        )
+        r = cli(["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
+                 str(fixture_dir / "q.fasta")])
         assert r.exit_code == 0
         jp = str(out / "placements_q.fasta.jplace")
-        r = runner.invoke(epik, ["diff", jp, jp])
+        r = cli(["diff", jp, jp])
         assert r.exit_code == 0
         assert "30/30 placements match." in r.output
 
-    def test_ppdiff_command_help(self):
-        runner = CliRunner()
-        r = runner.invoke(epik, ["ppdiff", "--help"])
+    def test_ppdiff_command_help(self, cli):
+        r = cli(["ppdiff", "--help"])
         assert r.exit_code == 0
 
 
 class TestResume:
-    def test_resume_continues_from_batch_checkpoint(self, fixture_dir, tmp_path):
+    def test_resume_continues_from_batch_checkpoint(self, cli, fixture_dir, tmp_path):
         out = tmp_path / "res"
         out.mkdir()
-        runner = CliRunner()
         args = ["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
                 "--batch-size", "10", str(fixture_dir / "q.fasta")]
-        r = runner.invoke(epik, args, catch_exceptions=False)
+        r = cli(args)
         assert r.exit_code == 0
         jp = out / "placements_q.fasta.jplace"
         full = jp.read_text()
@@ -200,7 +214,7 @@ class TestResume:
         # crash: no end(); header + one batch + sidecar on disk
         w._out.flush()
 
-        r2 = runner.invoke(epik, args + ["--resume"], catch_exceptions=False)
+        r2 = cli(args + ["--resume"])
         assert r2.exit_code == 0, r2.output
         assert "Resuming: 10 reads already placed." in r2.output
         content2 = _json.loads(jp.read_text())
@@ -208,7 +222,7 @@ class TestResume:
         assert names == expect_names
         assert not (out / "placements_q.fasta.jplace.resume").exists()
 
-    def test_resume_mid_batch_duplicates_are_not_lost(self, tmp_path):
+    def test_resume_mid_batch_duplicates_are_not_lost(self, cli, tmp_path):
         """A crash between batches must not drop records even when batches
         contain interleaved duplicate sequences (dedup reorders objects)."""
         import json as _json
@@ -226,7 +240,6 @@ class TestResume:
                 f.write(f">{name}\n{seq}\n")
         out = tmp_path / "o"
         out.mkdir()
-        runner = CliRunner()
         args = ["place", "-i", str(tmp_path / "DB.eptk"), "-o", str(out),
                 "--batch-size", "3", str(tmp_path / "q.fasta")]
         # write only the first batch (r1..r3), then "crash"
@@ -244,23 +257,22 @@ class TestResume:
         w << ReferencePlacer(db2, tree).place(recs)
         w._out.flush()
 
-        r = runner.invoke(epik, args + ["--resume"], catch_exceptions=False)
+        r = cli(args + ["--resume"])
         assert r.exit_code == 0, r.output
         assert "Resuming: 3 reads already placed." in r.output
         content = _json.loads(jp.read_text())
         names = sorted(nm[0] for p in content["placements"] for nm in p["nm"])
         assert names == ["r1", "r2", "r3", "r4", "r5", "r6"]
 
-    def test_resume_without_sidecar_is_fresh_start(self, fixture_dir, tmp_path):
+    def test_resume_without_sidecar_is_fresh_start(self, cli, fixture_dir, tmp_path):
         out = tmp_path / "rf"
         out.mkdir()
         jp = out / "placements_q.fasta.jplace"
         jp.write_text("{ garbage, no sidecar")
-        runner = CliRunner()
-        r = runner.invoke(epik, [
+        r = cli([
             "place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
             "--resume", str(fixture_dir / "q.fasta"),
-        ], catch_exceptions=False)
+        ])
         assert r.exit_code == 0, r.output
         assert "Resuming:" not in r.output  # fresh start
         import json as _json
@@ -284,51 +296,40 @@ class TestResume:
 
 
 class TestShardedEngine:
-    def test_place_sharded(self, fixture_dir):
+    def test_place_sharded(self, cli, fixture_dir):
         out = fixture_dir / "osh"
         out.mkdir(exist_ok=True)
-        runner = CliRunner()
-        r = runner.invoke(
-            epik,
-            ["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
-             "--engine", "sharded", "--n-model", "2",
-             str(fixture_dir / "q.fasta")],
-            catch_exceptions=False,
-        )
+        r = cli(["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out),
+                 "--engine", "sharded", "--n-model", "2",
+                 str(fixture_dir / "q.fasta")])
         assert r.exit_code == 0, r.output
         assert "sharded mesh 4x2" in r.output
         jp1 = out / "placements_q.fasta.jplace"
         # parity vs the single-device engine output
         out2 = fixture_dir / "osh1"
         out2.mkdir(exist_ok=True)
-        runner.invoke(
-            epik,
-            ["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out2),
-             str(fixture_dir / "q.fasta")],
-            catch_exceptions=False,
-        )
+        cli(["place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out2),
+             str(fixture_dir / "q.fasta")])
         res = jplace_diff(str(jp1), str(out2 / "placements_q.fasta.jplace"))
         assert res.clean, res.mismatches[:3]
 
 
 class TestUtilityCommands:
-    def test_stats(self, fixture_dir):
-        runner = CliRunner()
-        r = runner.invoke(epik, ["stats", str(fixture_dir / "DB.eptk")])
+    def test_stats(self, cli, fixture_dir):
+        r = cli(["stats", str(fixture_dir / "DB.eptk")])
         assert r.exit_code == 0, r.output
         assert "Sequence type: nucl" in r.output
         assert "k-mers: 1024" in r.output
 
-    def test_build_db(self, tmp_path):
+    def test_build_db(self, cli, tmp_path):
         import json as _json
 
         (tmp_path / "tree.nwk").write_text("((A:0.1,B:0.2):0.3,C:0.4):0.0;")
         (tmp_path / "entries.json").write_text(
             _json.dumps({"ACG": [[0, -1.0], [2, -2.0]], "CGT": [[1, -0.5]]})
         )
-        runner = CliRunner()
         out = tmp_path / "out.eptk"
-        r = runner.invoke(epik, [
+        r = cli([
             "build-db", "--tree", str(tmp_path / "tree.nwk"),
             "--entries", str(tmp_path / "entries.json"), "-k", "3", str(out),
         ])
@@ -340,7 +341,7 @@ class TestUtilityCommands:
 
 
 class TestAminoEndToEnd:
-    def test_place_amino(self, tmp_path):
+    def test_place_amino(self, cli, tmp_path):
         from epik_tpu.core.alphabet import AMINO
 
         db = random_db(num_leaves=12, kmer_size=4, num_kmers=800, seed=91,
@@ -356,44 +357,42 @@ class TestAminoEndToEnd:
                 f.write(f">p{i}\n{''.join(parts)}\n")
         out = tmp_path / "out"
         out.mkdir()
-        runner = CliRunner()
-        r = runner.invoke(epik, [
+        r = cli([
             "place", "-i", str(tmp_path / "aa.eptk"), "-s", "amino",
             "-o", str(out), str(tmp_path / "q.fasta"),
-        ], catch_exceptions=False)
+        ])
         assert r.exit_code == 0, r.output
         assert "Sequence type: amino" in r.output
         content = json.loads((out / "placements_q.fasta.jplace").read_text())
         assert len(content["placements"]) >= 1
         # parity with the oracle
-        r2 = runner.invoke(epik, [
+        r2 = cli([
             "place", "-i", str(tmp_path / "aa.eptk"), "-s", "amino",
             "-o", str(out), "--engine", "reference", str(tmp_path / "q.fasta"),
-        ], catch_exceptions=False)
+        ])
         # same file name: second run overwrote; rerun to diff properly
         out2 = tmp_path / "out2"
         out2.mkdir()
-        runner.invoke(epik, [
+        cli([
             "place", "-i", str(tmp_path / "aa.eptk"), "-s", "amino",
             "-o", str(out2), str(tmp_path / "q.fasta"),
-        ], catch_exceptions=False)
+        ])
         res = jplace_diff(str(out / "placements_q.fasta.jplace"),
                           str(out2 / "placements_q.fasta.jplace"))
         assert res.clean
 
 
 class TestGzipInput:
-    def test_place_gzip_fasta(self, fixture_dir, tmp_path):
+    def test_place_gzip_fasta(self, cli, fixture_dir, tmp_path):
         import gzip
 
         gz = tmp_path / "q.fasta.gz"
         gz.write_bytes(gzip.compress((fixture_dir / "q.fasta").read_bytes()))
         out = tmp_path / "og"
         out.mkdir()
-        runner = CliRunner()
-        r = runner.invoke(epik, [
+        r = cli([
             "place", "-i", str(fixture_dir / "DB.eptk"), "-o", str(out), str(gz),
-        ], catch_exceptions=False)
+        ])
         assert r.exit_code == 0, r.output
         content = json.loads((out / "placements_q.fasta.gz.jplace").read_text())
         assert sum(len(p["nm"]) for p in content["placements"]) == 30

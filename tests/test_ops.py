@@ -100,14 +100,34 @@ class TestRaggedExpand:
             assert got == expect
 
 
+def _finish_numpy(Sq, m, *, scale, K, k, log_eps):
+    """Numpy reference of the shifted finish (correction + LWR + top-K,
+    ties to the lowest branch index): returns (scores, idx, log_sum, n,
+    zero_sum) per read."""
+    Sp = Sq.astype(np.float64) / scale
+    touched = Sq > 0
+    corrected = np.where(touched, (Sp + m[:, None] * log_eps) / k, -np.inf)
+    B = Sq.shape[1]
+    n = touched.sum(axis=1)
+    npl = m * log_eps / k
+    n_not = B - n
+    max_c = corrected.max(axis=1)
+    max_t = np.maximum(max_c, np.where(n_not > 0, npl, -np.inf))
+    terms = np.where(touched, 10.0 ** (corrected - max_t[:, None]), 0.0)
+    sum10 = terms.sum(axis=1) + n_not * np.where(n_not > 0, 10.0 ** (npl - max_t), 0.0)
+    log_sum = max_t + np.log10(sum10)
+    zero_sum = (max_c < -323.6) & ((npl < -323.6) | (n_not <= 0))
+    idx = np.argsort(-corrected, axis=1, kind="stable")[:, :K]
+    return np.take_along_axis(corrected, idx, axis=1), idx, log_sum, n, zero_sum
+
+
 class TestPackedAccumulate:
-    """ops/pallas/accumulate.py packed-payload kernels (interpret mode on
-    CPU) against a numpy scatter oracle."""
+    """ops/accumulate.py (the tiles path's XLA scatter-add accumulate)
+    against a numpy scatter oracle, and the accumulate + XLA finish
+    against a numpy reference finish."""
 
     def _mk(self, R, PP, B, seed=0, frac_trash=0.3):
-        import numpy as np
-
-        from epik_tpu.ops.pallas.accumulate import trash_branch
+        from epik_tpu.ops.accumulate import trash_branch
 
         rng = np.random.default_rng(seed)
         b = rng.integers(0, B, (R, PP)).astype(np.int32)
@@ -118,91 +138,66 @@ class TestPackedAccumulate:
         q[mask] = 0
         return (b << 16) | q, b, q, trash
 
-    def test_sums_match_numpy(self):
-        import numpy as np
-
-        from epik_tpu.ops.pallas.accumulate import (
-            NH_LANES,
-            segment_accumulate_packed,
+    def _finish(self, g, m, *, B, K, k, log_eps, scale):
+        """Accumulate + finish exactly as the tiles step does."""
+        from epik_tpu.engine.placer import (
+            _pack_outputs_slim,
+            finish_scores_shifted,
         )
+        from epik_tpu.ops.accumulate import segment_sums_packed
+
+        Sq = segment_sums_packed(jnp.asarray(g), B)
+        Sp = Sq.astype(jnp.float32) / jnp.float32(scale)
+        outs = finish_scores_shifted(Sp, jnp.asarray(m), B=B, K=K, k=k,
+                                     log_eps=log_eps)
+        return np.asarray(Sq), np.asarray(_pack_outputs_slim(outs))
+
+    def _check(self, got, Sq, m, *, K, k, log_eps, scale):
+        scores, idx, log_sum, n, zero_sum = _finish_numpy(
+            Sq, m.astype(np.float64), scale=scale, K=K, k=k, log_eps=log_eps)
+        np.testing.assert_allclose(got[:, :K], scores, rtol=1e-5, atol=1e-5)
+        live = np.isfinite(scores)
+        # indices agree on LIVE entries (-inf slots are dropped by the
+        # host's n_eff cut, assemble_arrays)
+        np.testing.assert_array_equal(got[:, K:2 * K][live], idx[live])
+        np.testing.assert_allclose(got[:, 2 * K], log_sum, rtol=1e-5)
+        np.testing.assert_array_equal(got[:, 2 * K + 1], n)
+        np.testing.assert_array_equal(got[:, 2 * K + 2], zero_sum)
+
+    def test_sums_match_numpy(self):
+        from epik_tpu.ops.accumulate import segment_sums_packed, trash_branch
 
         R, PP, B = 16, 1024, 300
         g, b, q, trash = self._mk(R, PP, B)
-        got = np.asarray(
-            segment_accumulate_packed(g, B, tr=8, ch=512, interpret=True)
-        )
-        nh = (B + 1 + NH_LANES - 1) // NH_LANES
-        want = np.zeros((R, nh * NH_LANES))
+        got = np.asarray(segment_sums_packed(jnp.asarray(g), B))
+        want = np.zeros((R, trash_branch(B) + 1), np.int64)
         for r in range(R):
             np.add.at(want[r], b[r], q[r])
-        # EXACT integer sums (bf16 digit decomposition, f32 accumulators)
+        # EXACT integer sums (int32 accumulate)
+        assert got.dtype == np.int32
         np.testing.assert_array_equal(got, want[:, :B])
 
     def test_fused_topk_matches_xla_finish(self):
-        import numpy as np
-
-        from epik_tpu.engine.placer import (
-            _pack_outputs_slim,
-            finish_scores_shifted,
-        )
-        from epik_tpu.ops.pallas.accumulate import (
-            segment_accumulate_packed,
-            segment_accumulate_packed_topk,
-        )
-
+        """Accumulate + XLA finish (the tiles step's tail) against the
+        numpy reference finish, including a read with NO touched branch
+        (all trash) and one with fewer than K."""
         R, PP, B, K, k = 16, 1024, 300, 7, 10
         log_eps, scale = -4.26, 15023.0
         g, b, q, trash = self._mk(R, PP, B, seed=3)
-        # a read with NO touched branches (all trash) and one with few
         g[0] = np.int32(trash << 16)
         g[1, 8:] = np.int32(trash << 16)
-        import numpy as _np
-
-        m = _np.full(R, 141.0, _np.float32)
-        got = np.asarray(segment_accumulate_packed_topk(
-            g, m, B, K, k=k, log_eps=log_eps, scale=scale,
-            tr=8, ch=512, interpret=True,
-        ))
-        Sq = np.asarray(
-            segment_accumulate_packed(g, B, tr=8, ch=512, interpret=True)
-        )
-        import jax.numpy as jnp
-
-        outs = finish_scores_shifted(
-            jnp.asarray(Sq / np.float32(scale)), jnp.asarray(m),
-            B=B, K=K, k=k, log_eps=log_eps,
-        )
-        want = np.asarray(_pack_outputs_slim(outs))
-        # scores / log_sum / n / zero_sum agree to f32 rounding; indices
-        # agree exactly on LIVE entries (for -inf slots the kernel repeats
-        # index 0 while lax.top_k counts up -- both are dropped by the
-        # host's n_eff cut, assemble_arrays)
-        np.testing.assert_allclose(got[:, :K], want[:, :K], rtol=1e-5,
-                                   atol=1e-5)
-        live = np.isfinite(want[:, :K])
-        np.testing.assert_array_equal(got[:, K:2 * K][live],
-                                      want[:, K:2 * K][live])
-        np.testing.assert_allclose(got[:, 2 * K], want[:, 2 * K], rtol=1e-5)
-        np.testing.assert_array_equal(got[:, 2 * K + 1], want[:, 2 * K + 1])
-        np.testing.assert_array_equal(got[:, 2 * K + 2], want[:, 2 * K + 2])
+        m = np.full(R, 141.0, np.float32)
+        Sq, got = self._finish(g, m, B=B, K=K, k=k, log_eps=log_eps,
+                               scale=scale)
+        self._check(got, Sq, m, K=K, k=k, log_eps=log_eps, scale=scale)
 
     def test_fused_topk_fast_path_fallback_cases(self):
-        """The round-5 fast finish (per-lane top-2 candidates) must DETECT
-        and fall back on exactly the cases it cannot represent: a lane
-        holding 3+ of the top-K, and a hidden tie at the K-th boundary.
-        Engineered blocks for each case (plus a clean one) vs the XLA
-        finish."""
-        import numpy as np
-
-        from epik_tpu.engine.placer import (
-            _pack_outputs_slim,
-            finish_scores_shifted,
-        )
-        from epik_tpu.ops.pallas.accumulate import (
-            segment_accumulate_packed,
-            segment_accumulate_packed_topk,
-            trash_branch,
-        )
+        """Top-K tie-breaking and clustered winners: branches that share
+        a column residue mod 128 holding the three largest sums, an exact
+        tie at the K-th boundary (the lower branch index must win, like
+        the reference's ordering), and a clean spread -- against the numpy
+        reference finish."""
+        from epik_tpu.ops.accumulate import trash_branch
 
         R, PP, B, K, k = 24, 512, 300, 7, 10
         log_eps, scale = -4.26, 15023.0
@@ -214,37 +209,21 @@ class TestPackedAccumulate:
             for j, (br, q) in enumerate(pairs):
                 g[r, j] = (br << 16) | q
 
-        # block 0 (rows 0-7): lane collision -- branches 5, 133, 261 all
-        # sit in lane 5; give them the three largest sums
+        # branches 5, 133, 261 share a residue mod 128; largest sums
         put(0, [(5, 60000), (133, 59000), (261, 58000)]
                + [(i * 3 + 7, 1000 + i) for i in range(8)])
-        # block 1 (rows 8-15): exact tie at the K-th boundary between a
-        # candidate and a same-lane hidden second (branches 10 and 138)
+        # exact tie at the K-th boundary (branches 10 and 138)
         put(8, [(10, 5000), (138, 5000)]
                + [(20 + i, 50000 - 100 * i) for i in range(6)])
-        # block 2 (rows 16-23): clean spread (distinct lanes)
+        # clean spread (distinct residues)
         put(16, [(i * 5 + 2, 40000 - 500 * i) for i in range(12)])
         for r in list(range(1, 8)) + list(range(9, 16)) + list(range(17, 24)):
             put(r, [(int(x), int(y)) for x, y in zip(
                 rng.integers(0, B, 10), rng.integers(1, 64001, 10))])
 
         m = np.full(R, 141.0, np.float32)
-        got = np.asarray(segment_accumulate_packed_topk(
-            g, m, B, K, k=k, log_eps=log_eps, scale=scale,
-            tr=8, ch=512, interpret=True,
-        ))
-        Sq = np.asarray(
-            segment_accumulate_packed(g, B, tr=8, ch=512, interpret=True)
-        )
-        import jax.numpy as jnp
-
-        outs = finish_scores_shifted(
-            jnp.asarray(Sq / np.float32(scale)), jnp.asarray(m),
-            B=B, K=K, k=k, log_eps=log_eps,
-        )
-        want = np.asarray(_pack_outputs_slim(outs))
-        np.testing.assert_allclose(got[:, :K], want[:, :K], rtol=1e-5,
-                                   atol=1e-5)
-        live = np.isfinite(want[:, :K])
-        np.testing.assert_array_equal(got[:, K:2 * K][live],
-                                      want[:, K:2 * K][live])
+        Sq, got = self._finish(g, m, B=B, K=K, k=k, log_eps=log_eps,
+                               scale=scale)
+        self._check(got, Sq, m, K=K, k=k, log_eps=log_eps, scale=scale)
+        # the tie at the cut keeps branch 10, never 138
+        assert 10 in got[8, K:2 * K] and 138 not in got[8, K:2 * K]

@@ -81,31 +81,28 @@ def test_mesh_shapes_match_oracle(db, reads, n_data, n_model):
 
     tree = parse_newick(db.tree())
     mesh = make_mesh(n_data=n_data, n_model=n_model)
-    # dense_db off: pin the CSR scatter path (dense has its own test class)
-    sharded = ShardedJaxPlacer(db, tree, mesh, config=PlacerConfig(dense_db="off"))
-    assert not sharded._dense_db
+    # dense_db off + host tokenize: pin the CSR scatter path (dense and
+    # tiles have their own tests)
+    sharded = ShardedJaxPlacer(db, tree, mesh, config=PlacerConfig(
+        dense_db="off", tokenize_where="host"))
+    assert not sharded._dense_db and not sharded._tiles_mode
     ref = ReferencePlacer(db, tree)
     assert_equivalent(ref.place(reads), sharded.place(reads))
 
 
 @pytest.mark.parametrize("n_data,n_model", [(4, 2), (1, 8)])
 def test_csr_dense_accumulate_matches_oracle(db, reads, n_data, n_model):
-    """The round-5 CSR MXU-accumulate variant (accumulate_exact_dense in
-    the sharded CSR blocks; TPU's replacement for the serializing
-    duplicate-index scatter) must match the oracle.  Forced on CPU via
-    accumulate='matmul' with host tokenize (keeps tiles mode off) --
-    interpret-mode Pallas."""
+    """The CSR path with on-device tokenization (the hash-sharded scatter
+    when neither the dense plane nor the tiles fit their budget) must
+    match the oracle; ambiguous reads take the host-staged CSR step."""
     from epik_tpu.engine.placer import PlacerConfig
 
     tree = parse_newick(db.tree())
     mesh = make_mesh(n_data=n_data, n_model=n_model)
     sharded = ShardedJaxPlacer(
-        db, tree, mesh,
-        config=PlacerConfig(dense_db="off", accumulate="matmul",
-                            tokenize_where="host"),
+        db, tree, mesh, config=PlacerConfig(dense_db_budget=1024),
     )
     assert not sharded._dense_db and not sharded._tiles_mode
-    assert sharded._csr_dense_acc
     ref = ReferencePlacer(db, tree)
     assert_equivalent(ref.place(reads), sharded.place(reads))
 
@@ -309,9 +306,9 @@ class TestShardedPairPlane:
 
     def test_sharded_tiles_matches_oracle(self):
         """Column-sharded posting-tile mode (the big-tree path across
-        chips): per-shard local tiles + sum-only MXU accumulate (interpret
-        mode on CPU) against the scalar oracle, incl. the CSR fallback for
-        ambiguous batches."""
+        devices): per-shard local tiles + the scatter-add accumulate
+        against the scalar oracle, incl. the CSR fallback for ambiguous
+        batches."""
         from test_jax_engine import assert_jplace_close
 
         from epik_tpu.engine.placer import PlacerConfig
@@ -319,7 +316,7 @@ class TestShardedPairPlane:
         db, tree, reads = self._fixture()
         reads_clean = [r for r in reads if r[0] not in ("amb",)]
         mesh = make_mesh(n_data=4, n_model=2)
-        cfg = PlacerConfig(dense_db="off", accumulate="matmul")
+        cfg = PlacerConfig(dense_db="off")
         sharded = ShardedJaxPlacer(db, tree, mesh, config=cfg)
         assert sharded._tiles_mode, "fixture must activate sharded tiles"
         ref = ReferencePlacer(db, tree)

@@ -72,8 +72,7 @@ def _one_iteration(seed: int):
     engines = [
         JaxPlacer(db, tree, config=PlacerConfig()),
         JaxPlacer(db, tree, config=PlacerConfig(plane_mode="classic")),
-        JaxPlacer(db, tree,
-                  config=PlacerConfig(dense_db="off", accumulate="matmul")),
+        JaxPlacer(db, tree, config=PlacerConfig(dense_db="off")),
     ]
     try:
         from epik_tpu.native import NativePlacer
